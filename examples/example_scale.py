@@ -16,7 +16,7 @@ deployment uses — the surfaces that go beyond the reference crate's API
    device it degenerates to a single shard and still returns the exact
    groups.
 
-Runs on CPU (Pallas interpret mode) or TPU alike:
+Runs on the CPU backend or a CUDA GPU alike:
 
     python examples/example_scale.py [n_hashes]
 """

@@ -1,9 +1,8 @@
 """ChunkedPackedStore: packed libraries past the single-allocation
 watermark.
 
-One flat [n, 32] uint32 buffer hits the measured per-allocation cap
-(~8 GiB on the v5e, tools/probe_hbm.py) at ~67M hashes.  The chunked
-store splits the packed library across fixed-size device chunks while
+Past a single-allocation watermark (VDF_MAX_ALLOC_GB) one flat
+[n, 32] uint32 buffer is not allowed.  The chunked store splits the packed library across fixed-size device chunks while
 sliding windows slice across at most two adjacent chunks.  These tests
 pin the slice/scatter data path bit-exactly and pair-for-pair sweep
 parity against the host oracle for every state that can carry a store
@@ -393,10 +392,9 @@ def test_library_grow_migrates_flat_to_chunked(monkeypatch):
 
 
 def test_capacity_guard_raises_clear_error(monkeypatch):
-    """Past the measured device ceiling (80M passes, 96M is
-    RESOURCE_EXHAUSTED — BENCH_SCALE_r05.json) store creation and
-    growth must raise a clear capacity error naming n and the budget,
-    not die deep in the runtime (round-5 VERDICT item 4)."""
+    """Past the packed-capacity budget, store creation and growth must
+    raise a clear capacity error naming n and the budget, not die deep
+    in the runtime."""
     import pytest
 
     from vid_dup_finder_lib_tpu.ops.hamming_pallas import (
@@ -439,7 +437,7 @@ def test_take_rows_gather_oom_falls_back_to_row_slices(monkeypatch):
     store.set_rows(0, flat)
 
     def boom(*a, **k):
-        raise RuntimeError("RESOURCE_EXHAUSTED: TPU backend error")
+        raise RuntimeError("RESOURCE_EXHAUSTED: device backend error")
 
     monkeypatch.setattr(jnp, "take", boom)
     idx = np.array([5, 1023, 1024, 2047, 2048, 2999, 0])

@@ -14,6 +14,7 @@ import importlib
 import numpy as np
 import pytest
 
+from vid_dup_finder_lib_tpu import platform
 from vid_dup_finder_lib_tpu.ops import hamming_pallas as hp
 from vid_dup_finder_lib_tpu.ops.hamming import windowed_adjacency_device
 from vid_dup_finder_lib_tpu.parallel import ring_pallas as rp
@@ -74,7 +75,7 @@ def test_search_with_references_sharded_matches_loop(monkeypatch):
     search_mod = importlib.import_module("vid_dup_finder_lib_tpu.search")
     Search = search_mod.Search
     monkeypatch.setattr(search_mod, "_DEVICE_REFS_WORK_THRESHOLD", 0)
-    monkeypatch.setattr(search_mod, "_on_tpu", lambda: True)
+    monkeypatch.setattr(platform, "device_sweep", lambda: True)
     monkeypatch.setenv("VDF_REFS_WINDOWED", "1")
     monkeypatch.setenv("VDF_REFS_SHARDED", "1")
 

@@ -11,6 +11,7 @@ device kernel) against the same fixtures.
 import numpy as np
 import pytest
 
+from vid_dup_finder_lib_tpu import platform
 from vid_dup_finder_lib_tpu import (
     TOLERANCE_SCALING_FACTOR,
     VideoHash,
@@ -389,7 +390,7 @@ def test_chunked_device_refs_matches_loop(monkeypatch):
     assert any(expected)
 
     # and through the generalized Pallas sweep (interpret mode)
-    monkeypatch.setattr(search_mod, "_on_tpu", lambda: True)
+    monkeypatch.setattr(platform, "device_sweep", lambda: True)
     got_pallas = Search(cands).search_with_references_batched(refs, tol)
     assert got_pallas == expected
 
@@ -475,8 +476,7 @@ def test_auto_backend_prefers_native_on_cpu(monkeypatch):
         calls.append(packed64.shape[0])
         return real(packed64, bounds, tol, **kw)
 
-    monkeypatch.setattr(hamming, "_on_tpu", lambda: False)
-    monkeypatch.setattr(hamming, "_on_accelerator", lambda: False)
+    monkeypatch.setattr(platform, "device_sweep", lambda: False)
     monkeypatch.setattr(native_mod, "banded_adjacency_native", spy)
     rng = np.random.default_rng(71)
     n = 256

@@ -292,9 +292,9 @@ def test_windowed_need_matches_state():
 
 
 class TestAutoSplitWindowSizing:
-    """Default split windows auto-shrink near the HBM ceiling
-    (BENCH_SCALE_r05.json: 80M at default 1M/2M windows sweeps, 96M at
-    the same defaults is RESOURCE_EXHAUSTED in the counts launch)."""
+    """Default split windows auto-shrink near the device-memory ceiling,
+    so a near-ceiling library picks launchable windows instead of
+    running out of memory in the counts launch."""
 
     ALIGN = 2048
 

@@ -1,9 +1,8 @@
-"""Two-phase (counts + hit repack) vs one-pass Pallas sweep drivers.
+"""The two-phase sweep driver (counts + hit repack) against the host.
 
-The default driver sweeps counts-only and re-packs hit launches (phase B);
-VDF_SWEEP_SCHEME=onepass keeps the original packed-adjacency sweep.  Both
-must reproduce the host backend pair-for-pair, and the phase-B word-
-capacity overflow must fall back to exact host extraction.
+The driver sweeps counts-only and re-packs hit tiles (phase B); it must
+reproduce the host backend pair-for-pair, and the phase-B word-capacity
+overflow must fall back to exact host extraction.
 """
 
 import numpy as np
@@ -18,21 +17,18 @@ def _host(packed, bounds, tol):
 
 
 def test_two_phase_matches_onepass_and_host(monkeypatch):
+    """The two-phase sweep is pair-identical to the host sweep, at two
+    tolerances (the name is kept from when a one-pass driver existed)."""
     from vid_dup_finder_lib_tpu.ops import hamming_pallas as hp
 
     rng = np.random.default_rng(21)
     packed, bounds = _random_library(900, rng)
-    hi, hj = _host(packed, bounds, 350)
-    assert len(hi) > 0
-
-    ti, tj = hp.banded_adjacency_pallas(packed, bounds, 350)
-    assert np.array_equal(hi, ti)
-    assert np.array_equal(hj, tj)
-
-    monkeypatch.setenv("VDF_SWEEP_SCHEME", "onepass")
-    oi, oj = hp.banded_adjacency_pallas(packed, bounds, 350)
-    assert np.array_equal(hi, oi)
-    assert np.array_equal(hj, oj)
+    for tol in (350, 480):
+        hi, hj = _host(packed, bounds, tol)
+        assert len(hi) > 0
+        ti, tj = hp.banded_adjacency_pallas(packed, bounds, tol)
+        assert np.array_equal(hi, ti)
+        assert np.array_equal(hj, tj)
 
 
 def test_phase_b_word_capacity_overflow_falls_back(monkeypatch):

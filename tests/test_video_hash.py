@@ -3,7 +3,7 @@
 Ports the reference's in-module hash tests
 (``vid_dup_finder_lib/src/video_hashing/video_hash.rs:319-372``): triangle
 inequality, symmetry, and zero self-distance over seeded random hashes, plus
-packing roundtrip checks specific to the TPU bit layout.
+packing roundtrip checks specific to the device bit layout.
 """
 
 import numpy as np

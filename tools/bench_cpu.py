@@ -11,8 +11,7 @@ Measures, at VDF_CPU_N (default 100k) hashes with planted clusters:
   planted-cluster exactness.
 
 Writes one JSON line per measurement to VDF_CPU_OUT (default
-``BENCH_CPU_r04.json``) — the committed artifact behind the
-"CPU-only auto dispatch" numbers in ARCHITECTURE.md/README.md.
+``build/bench_cpu.jsonl``, not committed).
 Forces the CPU platform; safe to run anywhere.
 """
 
@@ -23,7 +22,7 @@ import os
 import sys
 import time
 
-os.environ.setdefault("VDF_JAX_PLATFORM", "cpu")
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 import numpy as np  # noqa: E402
 
@@ -42,8 +41,9 @@ from bench import (  # noqa: E402
 def main() -> None:
     n = int(os.environ.get("VDF_CPU_N", "100000"))
     out_path = os.environ.get(
-        "VDF_CPU_OUT", os.path.join(_REPO, "BENCH_CPU_r04.json")
+        "VDF_CPU_OUT", os.path.join(_REPO, "build", "bench_cpu.jsonl")
     )
+    os.makedirs(os.path.dirname(out_path), exist_ok=True)
     packed, durations, starts = synth_library(n)
     bounds = self_search_bounds(durations)
     comps = int(np.sum(np.maximum(bounds - np.arange(1, n + 1), 0)))

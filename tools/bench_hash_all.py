@@ -1,7 +1,8 @@
-"""Committed hash-throughput evidence runner (round-4 VERDICT item 8).
+"""Hash-throughput runner.
 
-Runs the two hash benches in child processes and writes their JSON lines
-to one evidence file (default BENCH_HASH_r04.json at the repo root):
+Runs the two hash benches in child processes (one at a time; this parent
+never imports JAX, so one process holds the card) and writes their JSON
+lines to one file (default chiprun_out/hash.jsonl):
 
 * ``bench_hash.py``   — device-math rate (cubes -> packed hashes/s/chip)
 * ``bench_e2e_hash.py`` — end-to-end videos/s incl. host decode, both
@@ -23,8 +24,9 @@ _REPO = os.path.dirname(_HERE)
 
 def main() -> None:
     out_path = os.environ.get(
-        "VDF_HASH_OUT", os.path.join(_REPO, "BENCH_HASH_r04.json")
+        "VDF_HASH_OUT", os.path.join(_REPO, "chiprun_out", "hash.jsonl")
     )
+    os.makedirs(os.path.dirname(out_path), exist_ok=True)
     results = []
     for script in ("bench_hash.py", "bench_e2e_hash.py"):
         print(f"# running {script} ...", file=sys.stderr, flush=True)

@@ -1,6 +1,6 @@
-"""TPU-native video duplicate finder.
+"""Video duplicate finder on JAX.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of the
+A JAX/XLA/Pallas framework with the capabilities of the
 reference ``vid_dup_finder_lib`` Rust crate: perceptual video hashing
 (16-frame grayscale 3D-DCT sign hash) and tolerance-based duplicate search.
 
@@ -10,23 +10,6 @@ Public surface mirrors the reference's re-exports
 ``search_with_references``, ``MatchGroup``, ``Cropdetect``, the default
 tunables, and the error type.
 """
-
-import os as _os
-
-# Deployment hook: force the jax platform before any backend
-# initializes.  On hosts where a site hook pre-imports jax and pins a
-# device plugin, the standard JAX_PLATFORMS env var set for a CHILD
-# process is silently overridden — `jax.config.update` before first
-# device use is the only reliable switch (subprocess tests set
-# VDF_JAX_PLATFORM=cpu so they never touch, or hang on, a real device).
-_plat = _os.environ.get("VDF_JAX_PLATFORM")
-if _plat:
-    try:
-        import jax as _jax
-
-        _jax.config.update("jax_platforms", _plat)
-    except Exception:
-        pass
 
 from .definitions import (
     Cropdetect,

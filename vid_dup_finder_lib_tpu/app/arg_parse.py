@@ -45,7 +45,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="vid-dup-finder",
         description=(
-            "Find near-duplicate video files (TPU-native rebuild of "
+            "Find near-duplicate video files (JAX rebuild of "
             "vid_dup_finder)."
         ),
     )

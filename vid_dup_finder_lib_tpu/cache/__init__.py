@@ -7,7 +7,7 @@ every run), with a metadata sidecar that invalidates everything when
 hash-affecting settings change, crash-safe atomic saves, and periodic
 autosave so an interrupted bulk hashing run resumes where it left off.
 
-The TPU twist (SURVEY.md section 7): ``update_using_fs`` diffs the filesystem
+The device twist (SURVEY.md section 7): ``update_using_fs`` diffs the filesystem
 against the cache, then hashes all stale videos through the *batched* device
 pipeline instead of one-at-a-time.
 """

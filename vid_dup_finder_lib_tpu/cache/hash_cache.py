@@ -12,7 +12,7 @@ Mirrors the reference's ``VideoHashFilesystemCache``
 * autosave every ``save_threshold`` mutations makes the cache the
   checkpoint: an interrupted bulk run resumes where it stopped.
 
-TPU-first difference (SURVEY.md section 7): ``update_using_fs`` diffs the
+Device-first difference (SURVEY.md section 7): ``update_using_fs`` diffs the
 walked paths against the cache, decodes all stale videos on a host thread
 pool, and hashes them in fixed-size *batches* on the device — not one
 pipeline launch per video.
@@ -207,7 +207,7 @@ class VideoHashFilesystemCache:
     def __len__(self) -> int:
         return len(self._cache)
 
-    # -- batched update (the TPU pipeline) ----------------------------------
+    # -- batched update (the device pipeline) ----------------------------------
 
     def update_using_fs(
         self,

@@ -1,7 +1,7 @@
 """Tunable constants of the video-hash pipeline.
 
 Values mirror the reference library's tunables
-(``vid_dup_finder_lib/src/definitions.rs:5-54``) exactly; the TPU build keeps
+(``vid_dup_finder_lib/src/definitions.rs:5-54``) exactly; this build keeps
 them bit-identical so hash/search semantics are comparable.
 """
 
@@ -36,7 +36,7 @@ HASH_BITS: int = HASH_SIZE**3  # 1000
 HASH_WORDS: int = -(-HASH_BITS // 64)  # 16 x u64 (reference packing)
 HASH_WORDS32: int = -(-HASH_BITS // 32)  # 32 x u32 (device packing)
 
-# Device-side padded bit width (multiple of 128 lanes for TPU tiling).
+# Device-side padded bit width (32 packed uint32 words).
 HASH_BITS_PADDED: int = 1024
 
 # Duration windows used by the search engine. (search_algorithm.rs:99,174-185)

@@ -1,6 +1,6 @@
 """Host-side video ingest: probing and frame decoding.
 
-The compute path is TPU-native, but decode stays on host (as in the
+The compute path is on the device, but decode stays on host (as in the
 reference, where ffmpeg/gstreamer do the decoding).  Backends:
 
 * ``ffmpeg``  — subprocess rawvideo pipe, byte-exact arguments versus the

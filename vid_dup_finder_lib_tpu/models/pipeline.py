@@ -1,12 +1,12 @@
 """Batched streaming hash pipeline.
 
 The reference hashes one video per rayon task
-(``video_hash_filesystem_cache.rs:244-249``); the TPU-native pipeline
-inverts this into batched dataflow (SURVEY.md section 7.1): a host thread
-pool decodes+crops+resizes videos into fixed-shape 16x16x16 cubes, batches
-of cubes stream to the device (h2d transfer and MXU hash of batch k overlap
-with the decode of batch k+1 — JAX dispatch is asynchronous), and packed
-hashes come back 128 bytes per video.
+(``video_hash_filesystem_cache.rs:244-249``); this pipeline inverts that
+into batched dataflow (SURVEY.md section 7.1): a host thread pool
+decodes+crops+resizes videos into fixed-shape 16x16x16 cubes, batches of
+cubes stream to the device (h2d transfer and hash of batch k overlap with
+the decode of batch k+1 — JAX dispatch is asynchronous), and packed hashes
+come back 128 bytes per video.
 """
 
 from __future__ import annotations
@@ -92,7 +92,6 @@ def hash_videos(
     batch_size: int = DEFAULT_BATCH,
     decode_workers: int = 8,
     progress: Callable[[int, int], None] | None = None,
-    use_pallas: bool | None = None,
     device_preproc: bool | None = None,
 ) -> dict[str, VideoHash | VdfError]:
     """Hash many videos; returns {path: VideoHash | VdfError}.
@@ -120,21 +119,9 @@ def hash_videos(
     def prepare(p: str):
         return safe_prepare(p, options)
 
-    if use_pallas is None:
-        try:
-            import jax
-
-            use_pallas = jax.default_backend() == "tpu"
-        except Exception:
-            use_pallas = False
-
     def dispatch(batch):
         metas = [(p, dur) for (p, _, dur, _) in batch]
         cubes = np.stack([c for (_, c, _, _) in batch])
-        if use_pallas:
-            from ..ops.hash_pallas import hash_cubes_pallas_async
-
-            return metas, hash_cubes_pallas_async(cubes)
         from ..ops.hash_kernel import hash_cubes_device_async
 
         return metas, hash_cubes_device_async(cubes)
@@ -162,8 +149,7 @@ def hash_videos(
             pending.append(dispatch(buf))
 
     for metas, packed in pending:
-        # pallas batches carry a finalizer, XLA batches a device array
-        rows = packed() if callable(packed) else np.asarray(packed)
+        rows = np.asarray(packed)
         for (p, dur), row in zip(metas, rows):
             results[p] = VideoHash.from_packed_u32(
                 np.ascontiguousarray(row), p, dur

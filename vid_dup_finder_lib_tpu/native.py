@@ -31,10 +31,7 @@ def _build_lib() -> str | None:
         return None
     with open(_SRC, "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    cache_dir = os.environ.get(
-        "VDF_NATIVE_CACHE",
-        os.path.join(os.path.expanduser("~"), ".cache", "vdf_native"),
-    )
+    cache_dir = os.environ.get("VDF_NATIVE_CACHE", os.path.dirname(_SRC))
     os.makedirs(cache_dir, exist_ok=True)
     out = os.path.join(cache_dir, f"libvdf_native_{digest}.so")
     if os.path.exists(out):

@@ -4,7 +4,7 @@
 // (vid_dup_finder_lib/src/video_hashing/search_algorithm.rs:131-170,
 // video_hash.rs:311-317, 16x u64 words per comparison).  This library
 // provides the same sweep as optimized native code:
-//   * used as the honest CPU baseline the TPU kernels are benchmarked
+//   * used as the honest CPU baseline the device kernels are benchmarked
 //     against (BASELINE.md: baselines must be self-measured), and
 //   * as the search fallback when no accelerator is present.
 //

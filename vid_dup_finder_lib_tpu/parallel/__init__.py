@@ -1,12 +1,12 @@
-"""Multi-chip scaling: device meshes, sharded hashing, ring search.
+"""Multi-device scaling: device meshes, sharded hashing, ring search.
 
 The reference is a single-process CPU tool (SURVEY.md section 2.7); its only
-parallelism is a rayon pool over videos.  The TPU-native equivalents:
+parallelism is a rayon pool over videos.  The device equivalents:
 
 * **data parallelism** over the video batch axis for hash generation
-  (``shard_map`` over a mesh axis; each chip hashes its shard);
+  (``shard_map`` over a mesh axis; each device hashes its shard);
 * **ring parallelism** over the library axis N for the all-pairs search:
-  each chip owns a row block of the bit-packed hash matrix and column
+  each device owns a row block of the bit-packed hash matrix and column
   blocks rotate around the ring via ``ppermute`` — structurally the
   ring-attention pattern, applied to Hamming adjacency.
 """

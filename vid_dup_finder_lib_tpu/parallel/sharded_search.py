@@ -1,11 +1,11 @@
 """Sharded hash generation and ring all-pairs candidate scan.
 
-Multi-chip layout (SURVEY.md section 2.7): the hash *batch* axis is data
-parallel; the all-pairs search shards the library axis N — each chip holds
+Multi-device layout (SURVEY.md section 2.7): the hash *batch* axis is data
+parallel; the all-pairs search shards the library axis N — each device holds
 a row block of the +/-1 hash matrix, and column blocks rotate around the
 ring with ``jax.lax.ppermute`` so every chip computes its row-block-vs-
-rotating-column-block distance tile each step.  O(N^2 / n_chips) MXU work
-per chip with the permute overlapped by XLA; collectives ride ICI.
+rotating-column-block distance tile each step.  O(N^2 / n_devices) matmul
+work per device with the permute overlapped by XLA.
 
 Two scan variants share the ring layout:
 
@@ -13,12 +13,12 @@ Two scan variants share the ring layout:
   best-match distance/index): the cheap probe for N too large to
   materialize adjacency.
 * ``banded_adjacency_ring`` (in ``ring_pallas``, re-exported here) —
-  EXACT pair extraction at production scale: the int8 banded Pallas
+  EXACT pair extraction at production scale: the two-phase int8 banded
   sweep runs per shard against packed column blocks rotated with
   ``ppermute``, with block-level band skipping and sliding row
-  windows.  This is the multi-chip backend behind
+  windows.  This is the multi-device backend behind
   ``search(..., backend="ring")`` — groups identical to the
-  single-chip paths.
+  single-device paths.
 """
 
 from __future__ import annotations
@@ -124,8 +124,7 @@ def _build_ring_scan(axis: str):
 @functools.cache
 def _jitted_ring_scan(axis: str, mesh):
     """jit-wrapped ring scan cached per (axis, mesh): a fresh shard_map +
-    jit per call retraced every invocation (compiles through the remote
-    helper cost ~7.5 s/kernel when the disk cache misses)."""
+    jit per call retraced every invocation)."""
     import jax
 
     return jax.jit(_build_ring_scan(axis)(mesh))
@@ -198,7 +197,7 @@ def _build_sharded_hash(axis: str):
 
     def hash_shard(cubes):
         """uint8[Bs, 16, 16, 16] -> uint32[Bs, 32] on each chip."""
-        hi = jax.lax.Precision.HIGHEST  # match hash_kernel/hash_pallas bits
+        hi = jax.lax.Precision.HIGHEST  # match hash_kernel bits
         dct = jnp.asarray(dct_np)
         x = cubes.astype(jnp.float32).transpose(0, 1, 3, 2) - 128.0
         x = jnp.einsum("ky,btxy->btxk", dct, x, precision=hi)

@@ -4,32 +4,37 @@ from __future__ import annotations
 
 import os
 
-_DEFAULT_CACHE_DIR = os.path.join(
-    os.path.expanduser("~"), ".cache", "vdf_tpu_jax_cache"
+# Fixed cache location inside the checkout (listed in .gitignore): the
+# path is part of the cache key, so it never depends on $HOME, a
+# temporary name, a pid or the time.
+_REPO_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    ".jax_cache",
 )
 
 
-def enable_compilation_cache(cache_dir: str | None = None) -> None:
+def cache_dir() -> str | None:
+    """The persistent compile-cache directory this package configures:
+    None when ``JAX_COMPILATION_CACHE_DIR`` is set (JAX reads it itself),
+    else ``<checkout>/.jax_cache``."""
+    if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return None
+    return _REPO_CACHE_DIR
+
+
+def enable_compilation_cache() -> None:
     """Persist compiled executables across processes.
 
-    Essential on tunneled TPU deployments where a single kernel compile can
-    take minutes of remote-compile round trips.
+    With ``JAX_COMPILATION_CACHE_DIR`` set, JAX already uses that
+    directory and this sets none of its own; otherwise the cache goes to
+    ``<checkout>/.jax_cache``.
     """
     import jax
 
-    path = cache_dir or os.environ.get(
-        "VDF_TPU_JAX_CACHE", _DEFAULT_CACHE_DIR
-    )
-    os.makedirs(path, exist_ok=True)
-    try:
+    path = cache_dir()
+    if path is not None:
+        os.makedirs(path, exist_ok=True)
         jax.config.update("jax_compilation_cache_dir", path)
-        # cache EVERYTHING: with a >= 1s floor, small programs (e.g. the
-        # batch hash executable) compiled sub-second on a healthy remote
-        # helper and were never persisted — then recompiled from scratch
-        # on every run, hanging whenever the helper degrades
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-        jax.config.update(
-            "jax_persistent_cache_min_entry_size_bytes", -1
-        )
-    except Exception:
-        pass  # older jax without these flags
+    # cache every program, however small or quick to compile
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)

@@ -37,8 +37,8 @@ class VideoHashBatch(list):
     columns the objects were built from so ``Search`` construction can
     skip every per-object Python loop (durations ``np.fromiter``, path
     ``os.fspath`` encode, ``hashes_to_matrix``) — at 16M entries those
-    loops cost ~10 s PER ``Search``, the dominant steady-state overhead
-    of the public refs search (round-5 evidence, BENCH_REFS_r05.json).
+    loops cost ~10 s PER ``Search`` on the host, the dominant
+    steady-state overhead of the public refs search.
 
     * ``packed_u32`` — ``uint32[n, 32]``, the device search format (the
       rows' ``hash`` fields are read-only views into this buffer).
